@@ -4,7 +4,7 @@
 // sample_constructor parses the custom '+NS+' format, dictionary_constructor
 // builds a case-insensitive vocabulary, sample_vectorization produces
 // bag-of-words vectors with temporal encoding.  This is the same pipeline,
-// re-designed (not translated) in C++ for the TPU framework's host side:
+// re-designed (not translated) in C++ for the framework's host side:
 // both the parsed and the raw bAbI formats, one pass, flat padded output
 // arrays ready for device upload.  Exposed via a C ABI consumed through
 // ctypes (qmann_tpu/data/native.py); the Python implementation in

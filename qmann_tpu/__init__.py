@@ -1,19 +1,19 @@
-"""qmann_tpu — a TPU-native framework for Quantized Memory-Augmented Neural
+"""qmann_tpu — a JAX framework for Quantized Memory-Augmented Neural
 Networks (Q-MANN, AAAI-18).
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
-reference C/CUDA implementation (seongsikpark/Q-MANN): fixed-point (Q-format)
+A from-scratch JAX/XLA re-design with the capabilities of the reference
+C/CUDA implementation (seongsikpark/Q-MANN): fixed-point (Q-format)
 quantization-aware training and inference of End-to-End Memory Networks on
 bAbI, including the hardware-friendly Hamming-similarity "approximate
-attention", plus TPU-first additions the reference lacks: batched jitted
-training, SPMD sharding over device meshes, Pallas kernels for the hot ops,
-a serving engine, checkpointing, and a real test suite.
+attention", plus additions the reference lacks: batched jitted training,
+SPMD sharding over device meshes, a serving engine, checkpointing, and a
+real test suite.
 
 Layering (bottom-up):
     numerics  — the Q-format fixed-point contract (build/freeze first)
-    ops       — quantized ops with reference-faithful custom VJPs (+ Pallas)
+    ops       — quantized ops with reference-faithful custom VJPs
     models    — functional MemN2N (and the maxout trial model)
-    data      — bAbI parsing/vectorization (raw and parsed formats)
+    data      — bAbI parsing/vectorization, seeded qa1 generator
     train     — jitted batched trainer with the reference's recipe
     parallel  — mesh/sharding: DP + TP + memory-bank sharding
     serve     — batched inference engine + packet-stream feed protocol

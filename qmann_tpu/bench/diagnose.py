@@ -24,8 +24,10 @@ def main(argv=None) -> int:
     p.add_argument("--max-samples", type=int, default=None)
     args = p.parse_args(argv)
 
-    from qmann_tpu.cli import _enable_compilation_cache
-    _enable_compilation_cache()
+    from qmann_tpu.utils.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
+    from qmann_tpu.data.synth import ensure_qa1
+    ensure_qa1(0)
 
     import jax
     import jax.numpy as jnp

@@ -1,5 +1,5 @@
 """Vmapped sweep harness: the reference's multi-run protocols as ONE
-TPU program per configuration.
+jitted program per configuration.
 
 MemN2N/run.sh:6-30 (10 loops x tasks 1-20) and MemN2N/sweep_fixed.sh:5-8
 (iwl {0,1} x tasks x 2 loops) re-train a tiny model hundreds of times in
@@ -58,22 +58,25 @@ def main(argv=None) -> int:
     p.add_argument("--keep-fast-path", action="store_true",
                    help="(now the default) keep the integer fast paths")
     p.add_argument("--no-fast-path", action="store_true",
-                   help="A/B: disable the integer fast paths (measured "
-                        "4x slower at family scale — docs/PROFILE_r4.md)")
+                   help="A/B: disable the integer fast paths")
     p.add_argument("--max-samples", type=int, default=None)
     p.add_argument("--max-test-samples", type=int, default=None)
     p.add_argument("--pad-dict", type=int, default=64)
     p.add_argument("--pad-line", type=int, default=50)
     p.add_argument("--out-dir", default="megasweep_results")
-    p.add_argument("--data-path",
-                   default="/root/reference/MemN2N/dataset/en_10k_parsed")
-    p.add_argument("--raw-data-path",
-                   default="/root/reference/MemN2N/dataset/"
-                           "tasks_1-20_v1-2/en-10k")
+    p.add_argument("--data-path", default=None,
+                   help="parsed-format bAbI directory (default: the seeded "
+                        "qa1 of qmann_tpu.data.synth, written on first use)")
+    p.add_argument("--raw-data-path", default=None,
+                   help="raw bAbI text directory (default: --data-path)")
     args = p.parse_args(argv)
+    if args.data_path is None:
+        from qmann_tpu.data.synth import ensure_qa1
+        args.data_path = ensure_qa1(0)
+    args.raw_data_path = args.raw_data_path or args.data_path
 
-    from qmann_tpu.cli import _enable_compilation_cache
-    _enable_compilation_cache()
+    from qmann_tpu.utils.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
     from qmann_tpu.config import QmannConfig
     from qmann_tpu.data.native import load_task_native
     from qmann_tpu.train.multi import train_tasks_multi

@@ -1,5 +1,5 @@
 """Throughput benchmarks: training steps/sec and inference queries/sec,
-single chip and (when more devices exist) sharded over the mesh.
+single device and (when more devices exist) sharded over the mesh.
 
     python -m qmann_tpu.bench.qps [--batch 1000] [--sharded]
 """
@@ -19,8 +19,10 @@ def main(argv=None) -> int:
     p.add_argument("--sharded", action="store_true")
     args = p.parse_args(argv)
 
-    from qmann_tpu.cli import _enable_compilation_cache
-    _enable_compilation_cache()
+    from qmann_tpu.utils.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
+    from qmann_tpu.data.synth import ensure_qa1
+    ensure_qa1(0)
 
     import jax
     import jax.numpy as jnp

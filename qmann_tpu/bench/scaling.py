@@ -1,11 +1,8 @@
 """Scaling-efficiency harness: training throughput vs device count.
 
-The north star asks for >=0.8 scaling efficiency from 1 chip to 1 host to
-multiple hosts (BASELINE.md).  This harness measures the sharded train
-step's samples/sec over growing sub-meshes of whatever devices exist —
-one real chip in this environment (where it degenerates to the
-single-device number), a virtual CPU mesh for logic validation, or a real
-pod slice when available.
+This harness measures the sharded train step's samples/sec over growing
+sub-meshes of whatever devices exist — the cards of one host, or a
+virtual CPU mesh for logic validation.
 
     python -m qmann_tpu.bench.scaling [--batch 256] [--devices 1,2,4,8]
 """
@@ -70,8 +67,8 @@ def main(argv=None) -> int:
                    help="comma list of device counts; default 1..N pow2")
     args = p.parse_args(argv)
 
-    from qmann_tpu.cli import _enable_compilation_cache
-    _enable_compilation_cache()
+    from qmann_tpu.utils.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
     import jax
     total = len(jax.devices())
     if args.devices:

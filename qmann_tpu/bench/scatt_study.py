@@ -31,7 +31,7 @@ MITIGATIONS = [
     # Q-format — the structural candidate fix (at the cost of coarse
     # score resolution: Q5.2's step is 0.25)
     ("cosine_sim", dict(en_cosine_sim=True)),
-    # TPU-native opt-in mitigations (NOT reference knobs; ops/qlinear.qscore
+    # opt-in mitigations (NOT reference knobs; ops/qlinear.qscore
     # score_mod): "att_shift" subtracts the row max of the RAW score sums
     # before the output requant — softmax is shift-invariant, so the score
     # distribution's shape survives quantization instead of pinning at the
@@ -53,8 +53,10 @@ def main(argv=None) -> int:
     p.add_argument("--resume", action="store_true")
     args = p.parse_args(argv)
 
-    from qmann_tpu.cli import _enable_compilation_cache
-    _enable_compilation_cache()
+    from qmann_tpu.utils.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
+    from qmann_tpu.data.synth import ensure_qa1
+    ensure_qa1(0)
     from qmann_tpu.config import QmannConfig
     from qmann_tpu.data.native import load_task_native
     from qmann_tpu.train import train_task

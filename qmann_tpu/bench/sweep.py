@@ -66,15 +66,19 @@ def main(argv=None) -> int:
                    help="pad every task to dict=64 / 50 memory rows so one "
                         "compiled program serves the whole sweep")
     p.add_argument("--out-dir", default="sweep_results")
-    p.add_argument("--data-path",
-                   default="/root/reference/MemN2N/dataset/en_10k_parsed")
-    p.add_argument("--raw-data-path",
-                   default="/root/reference/MemN2N/dataset/"
-                           "tasks_1-20_v1-2/en-10k")
+    p.add_argument("--data-path", default=None,
+                   help="parsed-format bAbI directory (default: the seeded "
+                        "qa1 of qmann_tpu.data.synth, written on first use)")
+    p.add_argument("--raw-data-path", default=None,
+                   help="raw bAbI text directory (default: --data-path)")
     args = p.parse_args(argv)
+    if args.data_path is None:
+        from qmann_tpu.data.synth import ensure_qa1
+        args.data_path = ensure_qa1(0)
+    args.raw_data_path = args.raw_data_path or args.data_path
 
-    from qmann_tpu.cli import _enable_compilation_cache
-    _enable_compilation_cache()
+    from qmann_tpu.utils.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
     from qmann_tpu.config import QmannConfig
     from qmann_tpu.data.native import load_task_native
     from qmann_tpu.train import train_task

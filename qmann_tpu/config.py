@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+from qmann_tpu.data.synth import qa1_dir
 from qmann_tpu.numerics import QFormat, ROUND_TOWARD_ZERO
 
 # bAbI task list (MemN2N/define.h:326-348); index 21 is the joint task.
@@ -113,8 +114,10 @@ class QmannConfig:
     count_early_stopping: int = 5       # :82
 
     # --- data (define.h:122-124, :168-172, :322-323) ---
-    data_path: str = "/root/reference/MemN2N/dataset/en_10k_parsed"
-    raw_data_path: str = "/root/reference/MemN2N/dataset/tasks_1-20_v1-2/en-10k"
+    # default: the seeded qa1 files of data.synth (seed 0); point both at
+    # the reference's en_10k_parsed / tasks_1-20_v1-2/en-10k for real bAbI
+    data_path: str = qa1_dir(0)
+    raw_data_path: str = qa1_dir(0)
     use_raw_babi: bool = False       # parse raw bAbI instead of parsed format
     num_sample: int = 10000          # :170
     num_sample_test: int = 1000      # :171
@@ -122,28 +125,15 @@ class QmannConfig:
     null_char: str = "NULL"          # :232
     max_word_len: int = 20           # :123
 
-    # --- TPU execution ---
-    use_pallas: bool = False   # route hot-op forwards through Pallas kernels
-    # mode-3 only: run JUST the Hamming score as the VMEM-tiled Pallas
-    # kernel while everything else stays on the XLA path — the clean
-    # per-op Pallas-vs-XLA A/B for the paper's core op (the mode-2
-    # demotion verdict of docs/PROFILE_r4.md never covered the int32
-    # bit-lattice workload)
-    use_pallas_hamming: bool = False
-    # integer-exactness fast paths: the STATIC integer-input stacked-MXU
-    # embedding route plus the runtime lax.cond MXU routes.  Bit-identical
-    # either way (the fast branch equals the lattice exactly whenever its
-    # predicate holds — tests/test_ops.py).  Measured defaults differ by
-    # regime (docs/PROFILE_r4.md): the serial gradient step compiles the
-    # conds out (trainer.train_epoch — their branch copies cost more than
-    # the small per-batch matmuls save), while the vmapped family trainer
-    # and all inference paths keep them (the static MXU route is a 4x at
-    # family scale and 2.56x in the scan bench)
+    # --- execution ---
+    # integer-exactness fast paths: the STATIC integer-input stacked
+    # embedding matmul plus the runtime lax.cond matmul routes.
+    # Bit-identical either way (the fast branch equals the lattice exactly
+    # whenever its predicate holds — tests/test_ops.py).  The serial
+    # gradient step compiles the conds out (trainer.train_epoch), while
+    # the vmapped family trainer and all inference paths keep them; which
+    # regime each default suits on the GPU is not measured yet
     en_integer_fast_path: bool = True
-    # serving/bench only: run the whole K-hop chain as ONE Pallas program
-    # inside forward_prepared (mode 2, quantized, no feature heads);
-    # bit-identical to the unfused chain (tests/test_pallas.py)
-    use_fused_chain: bool = False
 
     # --- misc ---
     seed: int = 0

@@ -14,7 +14,7 @@ Both input formats are supported:
     '.' of statements and the trailing token — the '?' — of questions).
 The two paths yield identical samples (tested in tests/test_data.py).
 
-TPU deviation (documented, behavior-preserving): the reference stages
+Deviation (documented, behavior-preserving): the reference stages
 variable-length per-sample sentence arrays; here stories are padded to a
 static memory length with a validity mask, and all quantized ops /
 softmaxes mask padded rows (SURVEY.md section 7, hard part 4).

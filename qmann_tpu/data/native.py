@@ -2,7 +2,7 @@
 (native/babi_parser.cpp -> libqmann_data.so).
 
 `load_task_native` mirrors data.babi.load_task but runs the parse +
-dictionary + vectorization in C++ — the TPU-native analog of the
+dictionary + vectorization in C++ — the analog of the
 reference's C data layer (MemN2N/sample.c).  Falls back to the Python
 pipeline transparently when the shared library has not been built
 (`make -C native`); tests/test_native.py asserts the two paths produce

@@ -124,40 +124,41 @@ def forward(params: Params, memory: jax.Array, question: jax.Array,
     """
     q = cfg.en_fixed_point
     fmt_w = cfg.fmt_w
-    backend = "pallas" if cfg.use_pallas else "jnp"
     K = cfg.num_hops
     # question/memory rows are integer bag-of-words counts unless EN_PE
     # replaces the question counts with position-encoding weights
     # (sample.c:546-547)
     q_integer = not cfg.en_pe and cfg.en_integer_fast_path
 
-    # u = B q  (emb_q: dense with in/w formats both fmt_w[0],
-    # MemN2N/MemN2N.c:823; dense backwards are float under every
-    # EN_GRAD_QUANT placement — see qlinear.qmatvec's note)
-    u = qmatvec(_query_weight(params, cfg), question,
-                fmt_w[0], fmt_w[0], quantized=q, backend=backend,
-                integer_inputs=q_integer)
+    with jax.named_scope("embed"):
+        # u = B q  (emb_q: dense with in/w formats both fmt_w[0],
+        # MemN2N/MemN2N.c:823; dense backwards are float under every
+        # EN_GRAD_QUANT placement — see qlinear.qmatvec's note)
+        u = qmatvec(_query_weight(params, cfg), question,
+                    fmt_w[0], fmt_w[0], quantized=q, integer_inputs=q_integer)
 
-    # All 2K memory embeddings (A and C per hop, per-hop formats under
-    # EN_MQ) in ONE stacked MXU matmul — the reference runs 2K sequential
-    # dense_mat_fwd kernels here (MemN2N/MemN2N.c:1372-1532)
-    hop_w = [_hop_weights(params, cfg, h) for h in range(K)]
-    embeds = qembed_mat_multi(
-        memory,
-        tuple(w[0] for w in hop_w) + tuple(w[1] for w in hop_w),
-        tuple(fmt_w[h] for h in range(K)) * 2,
-        quantized=q, backend=backend,
-        integer_inputs=cfg.en_integer_fast_path)
+        # All 2K memory embeddings (A and C per hop, per-hop formats under
+        # EN_MQ) in ONE stacked matmul — the reference runs 2K sequential
+        # dense_mat_fwd kernels here (MemN2N/MemN2N.c:1372-1532)
+        hop_w = [_hop_weights(params, cfg, h) for h in range(K)]
+        embeds = qembed_mat_multi(
+            memory,
+            tuple(w[0] for w in hop_w) + tuple(w[1] for w in hop_w),
+            tuple(fmt_w[h] for h in range(K)) * 2,
+            quantized=q, integer_inputs=cfg.en_integer_fast_path)
 
-    return _hop_stack(params, cfg, u, embeds, mask, remove_softmax, backend)
+    with jax.named_scope("hop_chain"):
+        return _hop_stack(params, cfg, u, embeds, mask, remove_softmax)
 
 
 def _hop_stack(params: Params, cfg: QmannConfig, u: jax.Array,
-               embeds, mask: jax.Array, remove_softmax: bool,
-               backend: str) -> ForwardResult:
+               embeds, mask: jax.Array,
+               remove_softmax: bool) -> ForwardResult:
     """The K-hop controller loop given the query embedding u and the 2K
     memory embeddings (A_0..A_{K-1}, C_0..C_{K-1}) — shared between the
-    training forward and the serving-prepared forward."""
+    training forward and the serving-prepared forward.  Callers run it
+    under the "hop_chain" named scope (the output layer is under
+    "output"): the names bench.trace_forward attributes device time by."""
     q = cfg.en_fixed_point
     fmt_w, fmt_act, fmt_att = cfg.fmt_w, cfg.fmt_act, cfg.fmt_att
     mask_f = mask.astype(jnp.float32)
@@ -168,54 +169,11 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: jax.Array,
     wsum_q = cfg.wsum_quantized
     wsum_gq = cfg.wsum_grad_quantized
 
-    # the Pallas fused read covers the plain mode-1/2/3 hop chain; feature
-    # heads (scale/maxout/cosine), softmax variants, linear-start, and the
-    # EN_GRAD_QUANT backward placement (the fused VJP is raw-float) keep
-    # the unfused op chain
-    use_fused = (backend == "pallas" and cfg.attention_mode in (1, 2, 3)
-                 and not remove_softmax and not gq
-                 and cfg.att_score_mod == "none"
-                 and not (cfg.en_sc_att or cfg.test_maxout
-                          or cfg.en_cosine_sim or cfg.en_shift_based_sm
-                          or cfg.en_exp_table_based))
-    # mode-3-only Pallas score route (use_pallas_hamming): the Hamming
-    # bit-lattice runs as the VMEM-tiled kernel while everything else
-    # stays on the XLA path — the clean per-op A/B for the paper's core
-    # op (bench.backend_ab --attention-mode 3 --variants ...,hamming)
-    att_backend = backend
-    if (cfg.attention_mode == 3 and cfg.use_pallas_hamming
-            and backend != "pallas"):
-        att_backend = "pallas"
-
     attn, scores_all = [], []
     for h in range(K):
         _, _, h_w = _hop_weights(params, cfg, h)
         m = embeds[h]                                         # [B, M, D]
         c = embeds[K + h]                                     # [B, M, D]
-
-        if use_fused:
-            from qmann_tpu.ops.fused import fused_attention_read
-            o, p, scores = fused_attention_read(
-                m, c, u, mask_f, fmt_att[h], cfg.fmt_bin, fmt_act[h],
-                score_quantized=(cfg.attention_mode == 2),
-                sum_quantized=wsum_q,
-                sum_grad_quantized=wsum_gq,
-                attention_mode=cfg.attention_mode,
-                ham_num_bit=cfg.num_bits_attention,
-                ham_const_scale=cfg.attention_const_scale,
-                ham_weight_para=cfg.hamming_weight_para,
-                ham_weighted=cfg.hamming_weighted)
-            if cfg.en_linear_mapping:
-                u_mapped = qmatvec(h_w, u, fmt_w[h], cfg.fmt_bin,
-                                   quantized=q, backend=backend)
-            else:
-                u_mapped = u
-            u = qsum(u_mapped, o, fmt_act[h], quantized=q)
-            if cfg.en_non_linearity:
-                u = activation(u, "RELU", fmt_act[h], q, grad_quantized=gq)
-            attn.append(p)
-            scores_all.append(scores)
-            continue
 
         if cfg.en_cosine_sim and cfg.attention_mode in (1, 2):
             # EN_COSINE_SIM (define.h:200; _cuda_normalize_vec,
@@ -231,7 +189,7 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: jax.Array,
             m_sc, u_sc, cfg.attention_mode, fmt_att[h], cfg.fmt_bin,
             num_bit=cfg.num_bits_attention,
             const_scale=cfg.attention_const_scale,
-            backend=att_backend, score_mod=cfg.att_score_mod,
+            score_mod=cfg.att_score_mod,
             hamming_weight_para=cfg.hamming_weight_para,
             hamming_weighted=cfg.hamming_weighted,
             grad_quantized=gq)                                # [B, M]
@@ -252,8 +210,7 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: jax.Array,
         if cfg.en_linear_mapping:
             # lin_map: dense(D->D) with in fmt_bin / w fmt_w[h]
             # (MemN2N/MemN2N.c:860)
-            u_mapped = qmatvec(h_w, u, fmt_w[h], cfg.fmt_bin, quantized=q,
-                               backend=backend)
+            u_mapped = qmatvec(h_w, u, fmt_w[h], cfg.fmt_bin, quantized=q)
         else:
             u_mapped = u
         u = qsum(u_mapped, o, fmt_act[h], quantized=q)         # [B, D]
@@ -263,8 +220,9 @@ def _hop_stack(params: Params, cfg: QmannConfig, u: jax.Array,
         scores_all.append(scores)
 
     # output layer runs float (MemN2N/MemN2N.c:766-767, 902-906)
-    logits = qmatvec(_output_weight(params, cfg), u,
-                     cfg.fmt_ds_ans, cfg.fmt_ds_ans, quantized=False)
+    with jax.named_scope("output"):
+        logits = qmatvec(_output_weight(params, cfg), u,
+                         cfg.fmt_ds_ans, cfg.fmt_ds_ans, quantized=False)
     return ForwardResult(logits, jnp.stack(attn), jnp.stack(scores_all))
 
 
@@ -291,25 +249,23 @@ def loss_and_metrics(params: Params, memory, question, answer, mask,
 
 # ---------------------------------------------------------------------------
 # Serving-prepared inference: pre-quantized weights + statically decided
-# exact-MXU fast paths
+# exact-matmul fast paths
 # ---------------------------------------------------------------------------
 
 class PreparedInference(NamedTuple):
     """Inference-layout parameters produced by prepare_inference.
 
-    The regular forward decides the exact-MXU fast paths (qlinear's
+    The regular forward decides the exact-matmul fast paths (qlinear's
     integer-input routes) with per-batch runtime checks under lax.cond —
     correct for training, where weights change every step, but in serving
     the conditionals and the per-call weight quantize/concat/layout work
-    are pure fixed cost: the round-3 trace (bench.trace_forward) shows
-    them dominating the per-wave time while the hop loop itself runs near
-    the analytic floor.  Here the exactness conditions are checked ONCE on
+    are pure fixed cost.  Here the exactness conditions are checked ONCE on
     the host against the frozen weights plus caller-supplied input bounds,
     the fast-path decision becomes trace-time static (no lax.cond), and
     the quantized/stacked/cast weights are computed once and cached.
     """
     raw: Params                        # original parameters (fallback path)
-    fast: bool                         # static exact-MXU route decision
+    fast: bool                         # static exact-matmul route decision
     query_wt: Optional[jax.Array]      # [I, D] quantized emb_q, transposed
     embed_wt: Optional[jax.Array]      # [I, 2K*D] stacked quantized A/C
 
@@ -346,9 +302,6 @@ def prepare_inference(params: Params, cfg: QmannConfig,
     mats = ([w[0] for w in hop_w] + [w[1] for w in hop_w]
             + [_query_weight(params, cfg)])
 
-    # use_pallas composes: the embeddings take the cached-weight MXU route
-    # here (strictly better than the Pallas lattice kernel for them) while
-    # the hop chain keeps the fused Pallas read via _hop_stack
     fast = (cfg.en_fixed_point and not cfg.en_pe
             and not any(f.is_binary for f in fmts))
     if fast:
@@ -383,8 +336,8 @@ def forward_prepared(prep: PreparedInference, memory: jax.Array,
     if not prep.fast:
         return forward(prep.raw, memory, question, mask, cfg)
 
-    from qmann_tpu.numerics import float_quant
-    from qmann_tpu.ops.qlinear import _mxu_matmul
+    from qmann_tpu.numerics import float_quant, float_quant_blocks
+    from qmann_tpu.ops.qlinear import _exact_matmul
 
     K = cfg.num_hops
     fmt_w = cfg.fmt_w
@@ -392,55 +345,22 @@ def forward_prepared(prep: PreparedInference, memory: jax.Array,
     dt = prep.query_wt.dtype
     D = prep.query_wt.shape[1]
 
-    # u = B q: one MXU pass on the cached quantized transpose (exact under
-    # the prepare-time bounds; f32 accumulate)
-    u = float_quant(_mxu_matmul(question.astype(dt), prep.query_wt, bf16),
-                    fmt_w[0])
+    with jax.named_scope("embed"):
+        # u = B q: one matmul on the cached quantized transpose (exact
+        # under the prepare-time bounds; f32 accumulate)
+        u = float_quant(
+            _exact_matmul(question.astype(dt), prep.query_wt, bf16),
+            fmt_w[0])
 
-    # all 2K hop embeddings in one MXU pass, requantized per hop format
-    flat = _mxu_matmul(memory.astype(dt), prep.embed_wt, bf16)  # [B,M,2K*D]
+        # all 2K hop embeddings in one matmul, requantized per hop format
+        flat = _exact_matmul(memory.astype(dt), prep.embed_wt,
+                             bf16)                          # [B, M, 2K*D]
 
-    # whole-chain Pallas route: ONE kernel for the K-hop controller loop,
-    # consuming the RAW matmul output (per-hop requants happen in-kernel,
-    # replacing the 2K slice+requant fusions) — docs/PROFILE_r3.md's lever
-    # on the serial hop-chain dispatch floor.  Covers modes 2 and 3 (the
-    # mode-3 score is the in-kernel Hamming bit-lattice).
-    use_chain = (cfg.use_fused_chain and cfg.attention_mode in (2, 3)
-                 and cfg.en_fixed_point and cfg.att_score_mod == "none"
-                 and not (cfg.en_sc_att or cfg.test_maxout
-                          or cfg.en_cosine_sim or cfg.en_shift_based_sm
-                          or cfg.en_exp_table_based)
-                 and not cfg.fmt_bin.is_binary
-                 and not any(f.is_binary for f in fmt_w))
-    if use_chain:
-        from qmann_tpu.ops.pallas.qkernels import fused_hop_chain_pallas
-        if cfg.en_linear_mapping:
-            if cfg.type_weight_tying == 1:
-                hm = prep.raw["H"]                        # [K, D, D]
-            else:
-                hm = jnp.broadcast_to(prep.raw["H"],
-                                      (K,) + prep.raw["H"].shape)
-        else:
-            hm = jnp.zeros((K, D, D), jnp.float32)
-        u_fin, p, s = fused_hop_chain_pallas(
-            flat, u, hm, mask, fmt_w, cfg.fmt_att, cfg.fmt_bin,
-            cfg.fmt_act, linear_mapping=cfg.en_linear_mapping,
-            non_linearity=cfg.en_non_linearity,
-            attention_mode=cfg.attention_mode,
-            ham_num_bit=cfg.num_bits_attention,
-            ham_const_scale=cfg.attention_const_scale,
-            ham_weight_para=cfg.hamming_weight_para,
-            ham_weighted=cfg.hamming_weighted)
-        logits = qmatvec(_output_weight(prep.raw, cfg), u_fin,
-                         cfg.fmt_ds_ans, cfg.fmt_ds_ans, quantized=False)
-        return ForwardResult(logits, p, s)
+        # one fused per-block requant over the stacked matmul output; the
+        # per-hop slices then fuse into the hop chain's consumers
+        flatq = float_quant_blocks(
+            flat, tuple(fmt_w[i % K] for i in range(2 * K)), (D,) * (2 * K))
+        embeds = tuple(flatq[..., i * D:(i + 1) * D] for i in range(2 * K))
 
-    # one fused per-block requant over the stacked matmul output; the
-    # per-hop slices then fuse into the hop chain's consumers
-    from qmann_tpu.numerics import float_quant_blocks
-    flatq = float_quant_blocks(
-        flat, tuple(fmt_w[i % K] for i in range(2 * K)), (D,) * (2 * K))
-    embeds = tuple(flatq[..., i * D:(i + 1) * D] for i in range(2 * K))
-
-    return _hop_stack(prep.raw, cfg, u, embeds, mask, False,
-                      "pallas" if cfg.use_pallas else "jnp")
+    with jax.named_scope("hop_chain"):
+        return _hop_stack(prep.raw, cfg, u, embeds, mask, False)

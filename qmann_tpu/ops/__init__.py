@@ -2,7 +2,6 @@ from qmann_tpu.ops.qlinear import (
     qmatvec, qembed_mat, qembed_mat_multi, qscore, qscore_partial_sum,
     qweighted_sum, qmatvec_reference,
 )
-from qmann_tpu.ops.fused import fused_attention_read
 from qmann_tpu.ops.attention import (
     hamming_score, binary_score, binarize, attention_score,
     unweighted_similarity, DEFAULT_CONST_SCALE,
@@ -19,7 +18,7 @@ from qmann_tpu.ops.elementwise import (
 __all__ = [
     "qmatvec", "qembed_mat", "qembed_mat_multi", "qscore",
     "qscore_partial_sum", "qweighted_sum", "qmatvec_reference",
-    "fused_attention_read", "hamming_score", "binary_score", "binarize", "attention_score",
+    "hamming_score", "binary_score", "binarize", "attention_score",
     "unweighted_similarity", "DEFAULT_CONST_SCALE",
     "softmax", "shift_softmax", "exp_plan", "exp_plan_softmax",
     "exp2_softmax", "apply_softmax",

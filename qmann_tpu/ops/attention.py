@@ -30,9 +30,9 @@ _cuda_backprop_grad_out_vec :1076-1462) — reproduced bit-for-bit,
 including the vec kernel's accumulate-stale-value quirk (tmp_a is only
 *assigned* when bits differ but *accumulated* every bit, :1299-1372).
 
-TPU mapping: everything is int32 VPU work over a [..., M, D] lattice with
-a static 8-iteration bit loop — XLA fuses it into one elementwise kernel;
-ops/pallas provides the VMEM-tiled version.
+Mapping: everything is int32 elementwise work over a [..., M, D] lattice
+with a static 8-iteration bit loop — XLA fuses it into one elementwise
+kernel.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ import numpy as np
 
 from qmann_tpu.numerics import QFormat, float_quant, encode_sign_magnitude
 
-INT32_SIGN_BIT = np.int32(-(2 ** 31))  # 0x80000000 as int32 (plain numpy scalar: jnp constants cannot be captured inside Pallas kernels)
+INT32_SIGN_BIT = np.int32(-(2 ** 31))  # 0x80000000 as int32
 
 # ATTENTION_CONST_SCALE (MemN2N/define.h:67)
 DEFAULT_CONST_SCALE = -3
@@ -122,17 +122,16 @@ def gray_hamming_score(m: jax.Array, u: jax.Array, iwl: int, num_bit: int,
     return jnp.sum(sim, axis=-1)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5, 6, 7, 8))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5, 6, 7))
 def hamming_score(m: jax.Array, u: jax.Array, iwl: int, num_bit: int,
                   const_scale: int = DEFAULT_CONST_SCALE,
-                  round_mode: int = 3, backend: str = "jnp",
+                  round_mode: int = 3,
                   weight_para: int = 0, weighted: bool = True) -> jax.Array:
     """Approximate (Hamming-similarity) attention score.
 
     m: [..., M, D] memory embeddings; u: [..., D] query -> [..., M].
     num_bit: number of compared bits = 1 + iwl + frac of the layer's
     nominal format (lib/layer.c:230, passed as (1+iwl_m+frac_m)).
-    backend="pallas" runs the VMEM-tiled kernel forward (bit-identical).
     weight_para: HAMMING_WEIGHT_PARA bit-weight exponent offset
     (define.h:24-28); weighted=False selects the unweighted plain
     bit-match count (_cuda_hamming_similarity f_weighted=false branch,
@@ -144,16 +143,11 @@ def hamming_score(m: jax.Array, u: jax.Array, iwl: int, num_bit: int,
     forward scores only.
     """
     return _hamming_fwd_impl(m, u, iwl, num_bit, const_scale, round_mode,
-                             backend, weight_para, weighted)
+                             weight_para, weighted)
 
 
 def _hamming_fwd_impl(m, u, iwl, num_bit, const_scale, round_mode,
-                      backend="jnp", weight_para=0, weighted=True):
-    if backend == "pallas" and m.ndim == 3 and u.ndim == 2:
-        from qmann_tpu.ops.pallas.qkernels import hamming_score_pallas
-        return hamming_score_pallas(m, u, iwl, num_bit, const_scale,
-                                    round_mode, weight_para=weight_para,
-                                    weighted=weighted)
+                      weight_para=0, weighted=True):
     fmt_full = QFormat(iwl, 31 - iwl, round_mode)
     wm = _encode_words(m, iwl, round_mode)             # [..., M, D]
     wu = _encode_words(u, iwl, round_mode)[..., None, :]  # [..., 1, D]
@@ -167,13 +161,13 @@ def _hamming_fwd_impl(m, u, iwl, num_bit, const_scale, round_mode,
     return float_quant(jnp.sum(term, axis=-1), fmt_full)  # :524-532
 
 
-def _hamming_fwd(m, u, iwl, num_bit, const_scale, round_mode, backend,
+def _hamming_fwd(m, u, iwl, num_bit, const_scale, round_mode,
                  weight_para, weighted):
     return (_hamming_fwd_impl(m, u, iwl, num_bit, const_scale, round_mode,
-                              backend, weight_para, weighted), (m, u))
+                              weight_para, weighted), (m, u))
 
 
-def _hamming_bwd(iwl, num_bit, const_scale, round_mode, backend,
+def _hamming_bwd(iwl, num_bit, const_scale, round_mode,
                  weight_para, weighted, res, g):
     """Surrogate gradients, reproduced from the reference kernels.
 
@@ -237,8 +231,8 @@ def binary_score(m: jax.Array, u: jax.Array) -> jax.Array:
     """Attention mode 4 as intended by the reference's commented code
     (lib/layer.c:237-251): binarize both operands, then float dot product.
     The reference's live GPU path leaves mode 4 unimplemented."""
-    # default matmul precision is exact here: +/-1 operands and integer
-    # partial sums <= D stay on the bf16 integer grid
+    # default matmul precision is exact here: +/-1 operands are exact in
+    # bf16 and TF32, and every partial sum is an integer <= D < 2^24
     return jnp.einsum("...md,...d->...m", binarize(m), binarize(u),
                       preferred_element_type=jnp.float32)
 
@@ -247,7 +241,6 @@ def attention_score(m: jax.Array, u: jax.Array, attention_mode: int,
                     fmt_att: QFormat, fmt_bin: QFormat,
                     num_bit: int | None = None,
                     const_scale: int = DEFAULT_CONST_SCALE,
-                    backend: str = "jnp",
                     score_mod: str = "none",
                     hamming_weight_para: int = 0,
                     hamming_weighted: bool = True,
@@ -271,7 +264,7 @@ def attention_score(m: jax.Array, u: jax.Array, attention_mode: int,
     if attention_mode == 3:
         nb = num_bit if num_bit is not None else 1 + fmt_att.iwl + fmt_att.frac
         return hamming_score(m, u, fmt_att.iwl, nb, const_scale,
-                             fmt_att.mode, backend, hamming_weight_para,
+                             fmt_att.mode, hamming_weight_para,
                              hamming_weighted)
     if attention_mode == 4:
         return binary_score(m, u)

@@ -1,6 +1,6 @@
 """Quantized linear-algebra ops with reference-faithful custom VJPs.
 
-These are the TPU-native equivalents of the reference's CUDA matmul kernels:
+These are the JAX equivalents of the reference's CUDA matmul kernels:
 
   * _cuda_mat_vec_product        (lib/layer_cuda.cu:49-83)    dense fwd
   * _cuda_mat_mat_trans_product  (lib/layer_cuda.cu:105-172)  attention score,
@@ -23,23 +23,19 @@ estimator **through the whole op**, which is why these are custom_vjp ops
 rather than compositions of STE quantizers (the latter would differentiate
 through the quantized operands instead of the raw ones).
 
-Every backward matmul therefore runs on the MXU at
-``precision=HIGHEST`` (6-pass bf16 == f32-faithful): the forward's bf16
-single-pass exactness argument does NOT extend to the VJPs, because
-cotangents are arbitrary float32 values with full 24-bit significands —
-there is no integer/grid structure to make bf16 rounding the identity —
-and raw float weights/inputs (unquantized in the backward by reference
-semantics) are equally off-grid.  The default (single-pass bf16) MXU
-precision would silently round both operands; HIGHEST is the faithful
-choice, and at these dims the training step is dispatch-bound, not
-FLOP-bound (docs/PROFILE_r3.md), so the 6 passes are free in practice.
+Every backward matmul therefore runs at ``precision=HIGHEST`` (full
+float32, never TF32 or bf16): the forward's bf16 exactness argument does
+NOT extend to the VJPs, because cotangents are arbitrary float32 values
+with full 24-bit significands — there is no integer/grid structure to make
+reduced-precision rounding the identity — and raw float weights/inputs
+(unquantized in the backward by reference semantics) are equally
+off-grid.  A default-precision matmul may round both operands (TF32 on
+the GPU); HIGHEST is the faithful choice.
 
-Why the products are requantized elementwise rather than on the MXU: the
+Why the products are requantized elementwise rather than in a matmul: the
 per-product truncation is applied *before* the summation, so the reduction
 cannot be expressed as a single matmul.  XLA fuses the
-broadcast-multiply-quantize-reduce chain into one loop fusion; a Pallas
-kernel (ops/pallas/) provides the tiled VMEM-resident version for the hot
-shapes.
+broadcast-multiply-quantize-reduce chain into one loop fusion.
 
 All ops accept arbitrary leading batch dimensions; weight gradients are
 summed over them — matching the reference's per-sample accumulation into
@@ -85,15 +81,15 @@ def _exact_bf16(fmt: QFormat) -> bool:
     return 0 < fmt.iwl + fmt.frac <= 8
 
 
-def _mxu_matmul(x, wq_t, exact_bf16: bool):
-    """out = x @ wq_t on the MXU, bit-exact to a real-arithmetic matmul.
+def _exact_matmul(x, wq_t, exact_bf16: bool):
+    """out = x @ wq_t, bit-exact to a real-arithmetic matmul.
 
     When both operand formats fit bf16 exactly (integer inputs, 8-bit
-    Q-format weights), ONE bf16 MXU pass with an f32 accumulator is exact:
+    Q-format weights), ONE bf16 matmul with an f32 accumulator is exact:
     bf16*bf16 products carry <= 16 significand bits (< f32's 24) and the
     fast-path conditions bound every partial sum under 2^24 grid units.
-    Otherwise fall back to f32 HIGHEST (6 passes) to avoid the default
-    precision's bf16 rounding of wide Q-formats."""
+    Otherwise fall back to f32 HIGHEST to avoid a reduced-precision
+    default (TF32 on the GPU) rounding wide Q-formats."""
     if exact_bf16:
         return jnp.matmul(x.astype(jnp.bfloat16), wq_t.astype(jnp.bfloat16),
                           preferred_element_type=jnp.float32)
@@ -101,9 +97,9 @@ def _mxu_matmul(x, wq_t, exact_bf16: bool):
                       precision=jax.lax.Precision.HIGHEST)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5, 6))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
 def qmatvec(w: jax.Array, x: jax.Array, fmt_w: QFormat, fmt_x: QFormat,
-            quantized: bool = True, backend: str = "jnp",
+            quantized: bool = True,
             integer_inputs: bool = False) -> jax.Array:
     """Quantized matrix-vector product: out[...,o] = Q(sum_i Q(Q(w)Q(x)))
 
@@ -113,14 +109,8 @@ def qmatvec(w: jax.Array, x: jax.Array, fmt_w: QFormat, fmt_x: QFormat,
     float output layer ds_ans (MemN2N/MemN2N.c:766-767,902-906) and
     attention mode 1.
 
-    backend="pallas" routes the quantized forward through the VMEM-tiled
-    Pallas kernel (ops/pallas/qkernels.py) — bit-identical output, one
-    program per batch tile instead of an XLA fusion chain over the
-    [B, O, I] product lattice.  The backward is the same raw-float VJP
-    either way.
-
     integer_inputs=True (bag-of-words query vectors, e.g. emb_q's input)
-    enables the exact MXU fast path when no per-product re-quantization
+    enables the exact matmul fast path when no per-product re-quantization
     can bite — the qmatvec analog of qembed_mat's fast path; falls back
     dynamically otherwise.
 
@@ -138,8 +128,7 @@ def qmatvec(w: jax.Array, x: jax.Array, fmt_w: QFormat, fmt_x: QFormat,
     dense layers all run activation "NULL".  So qmatvec's backward is
     float under every placement.
     """
-    return _qmatvec_fwd_impl(w, x, fmt_w, fmt_x, quantized, backend,
-                             integer_inputs)
+    return _qmatvec_fwd_impl(w, x, fmt_w, fmt_x, quantized, integer_inputs)
 
 
 def _qmatvec_integer_fast_ok(x, wq, fmt_w: QFormat, fmt_x: QFormat):
@@ -164,25 +153,18 @@ def _qmatvec_integer_fast_ok(x, wq, fmt_w: QFormat, fmt_x: QFormat):
             & (max_row_units < jnp.float32(2.0 ** 24)))
 
 
-def _qmatvec_fwd_impl(w, x, fmt_w, fmt_x, quantized, backend="jnp",
-                      integer_inputs=False):
+def _qmatvec_fwd_impl(w, x, fmt_w, fmt_x, quantized, integer_inputs=False):
     if not quantized:
         return jnp.einsum("oi,...i->...o", w, x,
                           preferred_element_type=jnp.float32,
                      precision=jax.lax.Precision.HIGHEST)
-    if backend == "pallas" and x.ndim >= 1:
-        from qmann_tpu.ops.pallas.qkernels import qmatvec_pallas
-        lead = x.shape[:-1]
-        flat = x.reshape((-1, x.shape[-1])) if x.ndim != 2 else x
-        out = qmatvec_pallas(w, flat, fmt_w, fmt_x)
-        out = out.reshape(lead + (w.shape[0],))
-    elif (integer_inputs and not fmt_w.is_binary and not fmt_x.is_binary):
+    if (integer_inputs and not fmt_w.is_binary and not fmt_x.is_binary):
         wq = float_quant(w, fmt_w)
 
         def fast(_):
             bf16_ok = _exact_bf16(fmt_w) and _exact_bf16(fmt_x)
             return float_quant(
-                _mxu_matmul(x, jnp.swapaxes(wq, 0, 1), bf16_ok), fmt_w)
+                _exact_matmul(x, jnp.swapaxes(wq, 0, 1), bf16_ok), fmt_w)
 
         def slow(_):
             prod = _qproducts(w, x[..., None, :], fmt_w, fmt_x, fmt_w)
@@ -199,12 +181,12 @@ def _qmatvec_fwd_impl(w, x, fmt_w, fmt_x, quantized, backend="jnp",
     return out
 
 
-def _qmatvec_fwd(w, x, fmt_w, fmt_x, quantized, backend, integer_inputs):
-    return (_qmatvec_fwd_impl(w, x, fmt_w, fmt_x, quantized, backend,
-                              integer_inputs), (w, x))
+def _qmatvec_fwd(w, x, fmt_w, fmt_x, quantized, integer_inputs):
+    return (_qmatvec_fwd_impl(w, x, fmt_w, fmt_x, quantized, integer_inputs),
+            (w, x))
 
 
-def _qmatvec_bwd(fmt_w, fmt_x, quantized, backend, integer_inputs, res, g):
+def _qmatvec_bwd(fmt_w, fmt_x, quantized, integer_inputs, res, g):
     w, x = res
     # raw-float gradients (cuda_dense_bwd, lib/layer_cuda.cu:3266,3284):
     #   w_del += g (x)^T ; grad_x = W^T g  (float under EVERY placement —
@@ -223,9 +205,9 @@ qmatvec.defvjp(_qmatvec_fwd, _qmatvec_bwd)
 # qembed_mat: M = S @ A^T  (dense_mat forward, lib/layer_cuda.cu:3512-3569)
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
 def qembed_mat(s: jax.Array, a: jax.Array, fmt: QFormat,
-               quantized: bool = True, backend: str = "jnp",
+               quantized: bool = True,
                integer_inputs: bool = False) -> jax.Array:
     """Memory embedding: s [..., M, I] (bag-of-words rows) x a [D, I]
     -> [..., M, D], with dense_mat's single Q-format applied to both
@@ -233,13 +215,12 @@ def qembed_mat(s: jax.Array, a: jax.Array, fmt: QFormat,
     _cuda_mat_mat_trans_product, lib/layer_cuda.cu:3512-3569).
 
     This op carries the framework's largest intermediate (the
-    [B, M, D, I] product lattice); backend="pallas" keeps it entirely in
-    VMEM by treating the B*M rows as the batch of the qmatvec kernel.
+    [B, M, D, I] product lattice).
 
-    integer_inputs=True (bag-of-words rows) enables an exact MXU fast
+    integer_inputs=True (bag-of-words rows) enables an exact matmul fast
     path when no per-product re-quantization can bite (see
     _integer_input_fast_path_ok); falls back dynamically otherwise."""
-    return _qembed_mat_impl(s, a, fmt, quantized, backend, integer_inputs)
+    return _qembed_mat_impl(s, a, fmt, quantized, integer_inputs)
 
 
 def _integer_input_fast_path_ok(s, a, fmt: QFormat):
@@ -256,31 +237,24 @@ def _integer_input_fast_path_ok(s, a, fmt: QFormat):
     Under these, every per-product re-quantization (CUDA_FIXED_MUL,
     lib/layer_cuda.h:258) is the identity, so the sum of quantized
     products equals the plain matmul of counts with quantized weights —
-    bit-for-bit, but on the MXU instead of an elementwise lattice."""
+    bit-for-bit, but as one matmul instead of an elementwise lattice."""
     maxf = fixed_max_float(fmt.iwl, fmt.frac)
     max_s = jnp.max(jnp.abs(s))
     max_wq = jnp.max(jnp.abs(float_quant(a, fmt)))
     # f32-exactness: every product and every partial row-sum must sit on
     # the 2^-frac grid with < 2^24 grid units, so f32 accumulation in any
-    # order (MXU tiling included) is exact and order-independent.
+    # order (any matmul tiling included) is exact and order-independent.
     max_row_units = (jnp.max(jnp.sum(jnp.abs(s), axis=-1)) * max_wq
                      * jnp.float32(2.0 ** fmt.frac))
     return ((max_s <= maxf) & (max_s * max_wq <= maxf)
             & (max_row_units < jnp.float32(2.0 ** 24)))
 
 
-def _qembed_mat_impl(s, a, fmt, quantized, backend="jnp",
-                     integer_inputs=False):
+def _qembed_mat_impl(s, a, fmt, quantized, integer_inputs=False):
     if not quantized:
         return jnp.einsum("...mi,di->...md", s, a,
                           preferred_element_type=jnp.float32,
                      precision=jax.lax.Precision.HIGHEST)
-    if backend == "pallas":
-        from qmann_tpu.ops.pallas.qkernels import qmatvec_pallas
-        lead = s.shape[:-1]
-        flat = s.reshape((-1, s.shape[-1]))
-        out = qmatvec_pallas(a, flat, fmt, fmt)
-        return out.reshape(lead + (a.shape[0],))
 
     def slow(_):
         prod = _qproducts(s[..., :, None, :], a, fmt, fmt, fmt)  # [...,M,D,I]
@@ -291,22 +265,21 @@ def _qembed_mat_impl(s, a, fmt, quantized, backend="jnp",
 
     def fast(_):
         aq = float_quant(a, fmt)
-        # one exact bf16 MXU pass for 8-bit formats (see _exact_bf16);
+        # one exact bf16 matmul for 8-bit formats (see _exact_bf16);
         # f32 HIGHEST otherwise — the default precision would round wide
         # Q-format weights and break bit-exactness with the slow path.
         return float_quant(
-            _mxu_matmul(s, jnp.swapaxes(aq, 0, 1), _exact_bf16(fmt)), fmt)
+            _exact_matmul(s, jnp.swapaxes(aq, 0, 1), _exact_bf16(fmt)), fmt)
 
     return jax.lax.cond(_integer_input_fast_path_ok(s, a, fmt), fast, slow,
                         None)
 
 
-def _qembed_mat_fwd(s, a, fmt, quantized, backend, integer_inputs):
-    return (_qembed_mat_impl(s, a, fmt, quantized, backend, integer_inputs),
-            (s, a))
+def _qembed_mat_fwd(s, a, fmt, quantized, integer_inputs):
+    return _qembed_mat_impl(s, a, fmt, quantized, integer_inputs), (s, a)
 
 
-def _qembed_mat_bwd(fmt, quantized, backend, integer_inputs, res, g):
+def _qembed_mat_bwd(fmt, quantized, integer_inputs, res, g):
     s, a = res
     # dense_mat_bwd: A_del += grad^T S in float
     # (_cuda_mat_trans_mat_product_accum, lib/layer_cuda.cu:637-690)
@@ -321,13 +294,12 @@ qembed_mat.defvjp(_qembed_mat_fwd, _qembed_mat_bwd)
 
 
 # ---------------------------------------------------------------------------
-# qembed_mat_multi: every hop's A/C embedding in ONE MXU matmul
+# qembed_mat_multi: every hop's A/C embedding in ONE matmul
 # ---------------------------------------------------------------------------
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4, 5))
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
 def qembed_mat_multi(s: jax.Array, weights: Tuple[jax.Array, ...],
                      fmts: Tuple[QFormat, ...], quantized: bool = True,
-                     backend: str = "jnp",
                      integer_inputs: bool = False) -> Tuple[jax.Array, ...]:
     """K independent qembed_mat calls sharing one input — computed as ONE
     stacked matmul.
@@ -335,30 +307,28 @@ def qembed_mat_multi(s: jax.Array, weights: Tuple[jax.Array, ...],
     The reference recomputes the memory embeddings for every hop
     sequentially (dense_mat_fwd per hop per A/C, MemN2N/MemN2N.c:1372-1532);
     under per-hop mixed precision (EN_MQ) the results genuinely differ, so
-    no CSE applies.  TPU-first design: quantize each weight matrix in its
-    own format, CONCATENATE them ([sum_k D_k, I]) and run a single
-    [.., M, I] x [I, sum_k D_k] MXU matmul, then re-quantize each D_k block
-    in its format.  Bit-identical to K separate qembed_mat calls (same
-    fast-path exactness conditions, applied jointly), but one systolic-array
-    pass instead of K small ones.
+    no CSE applies.  Here: quantize each weight matrix in its own format,
+    CONCATENATE them ([sum_k D_k, I]) and run a single
+    [.., M, I] x [I, sum_k D_k] matmul, then re-quantize each D_k block in
+    its format.  Bit-identical to K separate qembed_mat calls (same
+    fast-path exactness conditions, applied jointly), but one wide matmul
+    instead of K small ones.
 
     Returns a tuple of [..., M, D_k] arrays, one per (weight, fmt) pair.
     Gradients are the same raw-float VJPs as qembed_mat, per weight; a
     weight array appearing in multiple slots (shared A across hops under
     tying type 2) gets its cotangents summed by JAX as usual.
     """
-    return _qembed_mat_multi_impl(s, weights, fmts, quantized, backend,
-                                  integer_inputs)
+    return _qembed_mat_multi_impl(s, weights, fmts, quantized, integer_inputs)
 
 
-def _qembed_mat_multi_impl(s, weights, fmts, quantized, backend,
-                           integer_inputs):
+def _qembed_mat_multi_impl(s, weights, fmts, quantized, integer_inputs):
     assert len(weights) == len(fmts)
     single = [
-        lambda w=w, fmt=fmt: _qembed_mat_impl(s, w, fmt, quantized, backend,
+        lambda w=w, fmt=fmt: _qembed_mat_impl(s, w, fmt, quantized,
                                               integer_inputs)
         for w, fmt in zip(weights, fmts)]
-    if (not quantized or backend == "pallas" or not integer_inputs
+    if (not quantized or not integer_inputs
             or any(f.is_binary for f in fmts)):
         return tuple(f() for f in single)
 
@@ -370,7 +340,7 @@ def _qembed_mat_multi_impl(s, weights, fmts, quantized, backend,
     def fast(_):
         stacked = jnp.concatenate([jnp.swapaxes(wq, 0, 1) for wq in wqs],
                                   axis=1)                    # [I, sum D_k]
-        out = _mxu_matmul(s, stacked, all(_exact_bf16(f) for f in fmts))
+        out = _exact_matmul(s, stacked, all(_exact_bf16(f) for f in fmts))
         # one fused per-block requant over the whole stacked output (the
         # per-hop formats differ only under EN_MQ); the downstream slices
         # then fuse into their consumers instead of materializing 2K
@@ -389,14 +359,12 @@ def _qembed_mat_multi_impl(s, weights, fmts, quantized, backend,
     return jax.lax.cond(ok, fast, slow, None)
 
 
-def _qembed_mat_multi_fwd(s, weights, fmts, quantized, backend,
-                          integer_inputs):
-    out = _qembed_mat_multi_impl(s, weights, fmts, quantized, backend,
-                                 integer_inputs)
+def _qembed_mat_multi_fwd(s, weights, fmts, quantized, integer_inputs):
+    out = _qembed_mat_multi_impl(s, weights, fmts, quantized, integer_inputs)
     return out, (s, weights)
 
 
-def _qembed_mat_multi_bwd(fmts, quantized, backend, integer_inputs, res, gs):
+def _qembed_mat_multi_bwd(fmts, quantized, integer_inputs, res, gs):
     s, weights = res
     # raw-float per-entry VJPs (dense_mat_bwd semantics), input grads summed
     dws = tuple(
@@ -630,7 +598,7 @@ def qweighted_partial_sum(c: jax.Array, p: jax.Array, row_mask: jax.Array,
     """qweighted_sum WITHOUT the final output re-quantization — the local
     building block for memory-bank-sharded execution: each device sums its
     shard's quantized products (exact on the 2^-frac grid), the shards are
-    psum'd across ICI, and the single output quantization is applied
+    psum'd across devices, and the single output quantization is applied
     globally (parallel/distributed.py).  Same backward family as
     qweighted_sum; the quantized backward (mode-3 f_fixed rule) is fully
     shard-local — dc is elementwise per memory row and dp reduces over

@@ -12,7 +12,7 @@ is max-subtracted exp with sum normalization.  Variants:
   * exp2 (CPU-only): pow(2, x-max)/sum (lib/layer.c:1275)
 
 Masking: the reference evaluates the softmax over exactly n_sen live rows
-per sample.  The TPU version pads the memory axis to a static length and
+per sample.  This version pads the memory axis to a static length and
 masks before max/exp so padded rows contribute exactly zero probability —
 a documented behavioral-equivalence deviation (SURVEY.md section 7,
 hard part 4).

@@ -9,7 +9,7 @@ star asks for (SURVEY.md sections 2.6, 5):
   each device holds a shard of the memory sentences [B, M/s, ...];
   1. local attention scores against the query;
   2. global max via pmax, global exp-sum via psum (the two softmax
-     statistics — one scalar pair per row crosses ICI);
+     statistics — one scalar pair per row crosses devices);
   3. local quantized weighted-sum partials, psum'd and re-quantized.
 
 The final re-quantization AFTER the psum preserves the reference's exact
@@ -100,7 +100,7 @@ def _attention_read_local(m_l, c_l, u, mask_l, cfg: QmannConfig, hop: int,
                                    grad_quantized=cfg.grad_quant_backward)
     scores_l = jnp.where(mask_l, scores_l, _NEG_LARGE)
 
-    # distributed softmax statistics: one max + one sum per row over ICI.
+    # distributed softmax statistics: one max + one sum per row.
     # stop_gradient goes on pmax's INPUT: the max subtraction cancels in
     # the softmax gradient (and pmax has no differentiation rule).
     local_max = jax.lax.stop_gradient(jnp.max(scores_l, axis=-1))

@@ -8,7 +8,7 @@ equivalent — the whole train step runs inside ONE shard_map over the
   * batch sharded over "data", memory sentences over "model";
   * each hop's attention read is distributed._attention_read_local:
     psum'd softmax statistics + psum'd quantized partial sums over the
-    memory shards (two scalar-per-row ICI exchanges per hop);
+    memory shards (two scalar-per-row exchanges per hop);
   * weight gradients cross the wire through the transposes of the
     replicated->varying casts (jax.lax.pcast): parameters are cast
     varying over both mesh axes on entry to the loss, so reverse mode

@@ -3,7 +3,7 @@
 Design (the "How to Scale Your Model" recipe: pick a mesh, annotate
 shardings, let XLA insert the collectives):
 
-  batch tensors  [B, ...]        -> P("data", ...)        (DP, DCN-friendly)
+  batch tensors  [B, ...]        -> P("data", ...)        (DP)
   memory         [B, M, I]       -> P("data", "model", -) (memory-bank
         sharding: attention scores/softmax over the sharded M axis compile
         to distributed max/sum — the sequence/context-parallel analog)
@@ -121,8 +121,7 @@ def make_sharded_eval_step(cfg: QmannConfig, mesh: Mesh):
 
 
 # ---------------------------------------------------------------------------
-# Sharded inference/serving (BASELINE.md north star: q/s scaling
-# 1 chip -> 1 host -> N hosts covers inference as well as training)
+# Sharded inference/serving
 # ---------------------------------------------------------------------------
 
 def _replicate(mesh: Mesh, v: jax.Array) -> jax.Array:
@@ -169,16 +168,13 @@ def make_sharded_prepared_infer(prep, cfg: QmannConfig, mesh: Mesh):
     KV-cache-style sharding — XLA partitions the attention softmax over
     the sharded M axis into distributed max/sum), weights replicated.
 
-    Pallas routes are single-core programs, so the sharded path pins the
-    partitionable XLA forward (use_fused_chain/use_pallas off); the
-    exact-MXU static routes and all quantization semantics are identical,
-    and the result is bit-identical to the single-device prepared forward
+    The exact-matmul static routes and all quantization semantics are
+    those of the single-device path, and the result is bit-identical to
+    the single-device prepared forward
     (tests/test_parallel.py::test_sharded_prepared_infer_matches_single).
 
     Returns run(memory, question, answer, mask) -> (cost, matches, pred).
     """
-    cfg = cfg.replace(use_fused_chain=False, use_pallas=False,
-                      use_pallas_hamming=False)
     sprep = shard_prepared(mesh, prep)
 
     @jax.jit

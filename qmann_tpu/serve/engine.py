@@ -2,13 +2,13 @@
 
 The reference's only serving path is the FPGA offload: a writer thread
 streams the test set and a reader thread collects predicted answer
-indices (MemN2N/MemN2N.c:2706-2738).  The TPU-native engine generalizes
+indices (MemN2N/MemN2N.c:2706-2738).  This engine generalizes
 that into a continuous-batching server:
 
   * requests (stories + questions) enter a queue from any number of
     producer threads (or from a packet stream via serve.packet);
   * a single dispatcher thread drains the queue, pads/masks up to a fixed
-    batch shape, and runs ONE jitted forward per wave on the chip;
+    batch shape, and runs ONE jitted forward per wave on the device;
   * answers (dictionary indices) resolve each request's future.
 
 The fixed batch shape keeps a single compiled executable hot (no
@@ -63,12 +63,6 @@ class InferenceEngine:
         from qmann_tpu.models import memn2n
         from qmann_tpu.ops import argmax_last
 
-        if mesh is not None:
-            # sharded serving: Pallas routes are single-core programs, so
-            # the mesh path pins the partitionable XLA forward (identical
-            # numerics; parallel.make_sharded_prepared_infer's contract)
-            cfg = cfg.replace(use_fused_chain=False, use_pallas=False,
-                              use_pallas_hamming=False)
         self.mesh = mesh
         self.cfg = cfg
         self.dims = dims
@@ -81,7 +75,7 @@ class InferenceEngine:
         self.stats = EngineStats()
 
         # freeze weights into serving layout once per engine: quantized /
-        # stacked / cast, exact-MXU routes decided statically against the
+        # stacked / cast, exact-matmul routes decided statically against the
         # vectorizer's feature bounds (counts are per-row word counts plus
         # one temporal one-hot, so a row's count sum is < max_word + 1).
         # prepare=False keeps the training forward (per-wave weight

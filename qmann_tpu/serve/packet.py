@@ -13,7 +13,7 @@ MemN2N/sample.c:576-687):
   response:      one packet per sample whose addr is the predicted
                  answer's dictionary index (MemN2N/MemN2N.c:3273-3284).
 
-Here the same wire format feeds the TPU serving engine over any byte
+Here the same wire format feeds the serving engine over any byte
 stream (socket, pipe, file).  Packets are little-endian uint16 with the
 type in the top 4 bits (TYPE_CAST_PKT16_SHORT, lib/common.h:240).
 """

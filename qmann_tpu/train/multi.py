@@ -4,8 +4,8 @@ jitted per-epoch program.
 The reference's sweep protocols re-run a tiny model serially:
 MemN2N/run.sh:6-30 is 10 loops x tasks 1-20 (200 full trainings) and
 MemN2N/sweep_fixed.sh:5-8 is iwl {0,1} x 20 tasks x 2 loops.  Each run's
-matmuls ([32, 114] x [114, 60]) are far below MXU saturation, so on TPU
-the serial protocol wastes >95% of the chip.  Here every run becomes one
+matmuls ([32, 114] x [114, 60]) are far too small to fill an
+accelerator, so the serial protocol leaves it mostly idle.  Here every run becomes one
 slice of a leading R axis: parameters are stacked [R, ...], the SGD step
 is `jax.vmap`-ed over R inside the epoch `lax.scan`, and the whole
 protocol runs at the wall-clock of roughly ONE training.
@@ -228,16 +228,13 @@ def train_tasks_multi(cfg: QmannConfig, tasks: Dict[int, TaskData],
     tasks: {task_index: TaskData} — all tasks must share feature shapes
     (load with pad_dict/pad_line, the sweep's --uniform-shapes layout).
     """
-    # MEASURED (runs/msab_{off,on}, docs/PROFILE_r4.md): the fast paths
-    # stay ON here.  The select-both-branches argument (vmap batches the
-    # cond predicates) predicted they'd be pure overhead, but the knob
-    # also gates the STATIC integer-input stacked-MXU embedding route
-    # (models/memn2n.py integer_inputs=...), and at family scale that
-    # route dominates: 20 runs x 50 epochs trained in 104 s with the
-    # fast paths vs 417 s without (both passes reproduce).  The serial
-    # trainer measures the OPPOSITE (its per-step matmuls are too small
-    # to pay for the cond copies — trainer.train_epoch compiles them
-    # out).  Bit-identical either way (the fast branch equals the
+    # The fast paths stay ON here: under vmap the cond predicates are
+    # batched (both branches run), but the knob also gates the STATIC
+    # integer-input stacked embedding matmul (models/memn2n.py
+    # integer_inputs=...), which replaces the [.., M, D, I] product
+    # lattice.  The serial trainer compiles the conds out
+    # (trainer.train_epoch).  Neither default is measured on the GPU
+    # yet.  Bit-identical either way (the fast branch equals the
     # lattice whenever its predicate holds; test_multi run-for-run
     # equality).  integer_fast_path=False is the A/B tool.
     if integer_fast_path is None:

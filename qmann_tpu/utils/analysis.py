@@ -5,7 +5,7 @@ The reference can dump every attention softmax's inputs and outputs per
 (EN_SIMILARITY_ANALYSIS, MemN2N/MemN2N.c:492-516 setup, :1416-1475 dump)
 to study how quantization reshapes the attention distributions.
 
-The TPU version collects the same tensors from the batched forward
+This version collects the same tensors from the batched forward
 (ForwardResult.scores / .attention) and writes the same bucketed CSVs.
 """
 from __future__ import annotations

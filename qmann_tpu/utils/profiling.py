@@ -3,7 +3,7 @@
 The reference hand-times every (layer, lifecycle-op) pair with clock()
 into time_profile[10][7] (MemN2N/MemN2N.c:133-141, report :3000-3021).
 Under XLA the per-layer breakdown lives in the compiler's fused program,
-so the TPU-native equivalents are:
+so the equivalents here are:
   * PhaseProfiler — wall-clock per pipeline phase (data/train/eval/...),
     the analog of the reference's data-transfer vs compute split;
   * trace() — a jax.profiler trace context producing a TensorBoard/XProf
@@ -42,7 +42,7 @@ class PhaseProfiler:
 
 @contextlib.contextmanager
 def trace(log_dir: str):
-    """Device-level profiling via jax.profiler (TPU timeline)."""
+    """Device-level profiling via jax.profiler (device timeline)."""
     import jax
     jax.profiler.start_trace(log_dir)
     try:

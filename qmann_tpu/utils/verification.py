@@ -1,10 +1,9 @@
-"""Cross-verification utilities — the TPU-native analog of the reference's
+"""Cross-verification utilities — the analog of the reference's
 HW_MODE 21 CPU<->GPU verification mode (MemN2N/define.h:96,108-111), whose
 verification_point blocks compare the two paths element-wise against
 TH_ERROR_FLOAT = 1e-6 (lib/common.h:178; e.g. dense fwd lib/layer.c:1933-1994).
 
 Here the paired paths are:
-  * the jnp reference ops vs the Pallas kernels (bit-exact for quantized),
   * the quantized model vs its float counterpart (tolerance-free report of
     where quantization changes behavior),
   * saturation/overflow statistics per tensor (the f_overflow capability,
@@ -63,33 +62,6 @@ def overflow_stats(x, fmt: QFormat) -> Dict[str, float]:
         "underflow_to_zero": float(((np.abs(x) < step) & (x != 0)).sum()) / n,
         "max_abs": float(np.abs(x).max()) if x.size else 0.0,
     }
-
-
-def verify_kernels(rng: np.random.Generator | None = None,
-                   interpret: bool = True) -> List[VerificationResult]:
-    """Pallas kernels vs jnp ops (quantized paths must be bit-exact)."""
-    from qmann_tpu.numerics import float_quant
-    from qmann_tpu.ops import hamming_score, qmatvec
-    from qmann_tpu.ops.pallas.qkernels import (
-        hamming_score_pallas, qmatvec_pallas,
-    )
-    rng = rng or np.random.default_rng(0)
-    results = []
-    fmt = QFormat(5, 2)
-    w = jnp.asarray(rng.normal(0, 1.5, (16, 24)).astype(np.float32))
-    x = jnp.asarray(rng.normal(0, 1.5, (9, 24)).astype(np.float32))
-    results.append(compare(
-        "qmatvec pallas-vs-jnp",
-        qmatvec_pallas(w, x, fmt, fmt, interpret=interpret),
-        qmatvec(w, x, fmt, fmt), threshold=0.0))
-    act = QFormat(5, 2)
-    m = float_quant(jnp.asarray(rng.normal(0, 2, (8, 6, 5)).astype(np.float32)), act)
-    u = float_quant(jnp.asarray(rng.normal(0, 2, (8, 5)).astype(np.float32)), act)
-    results.append(compare(
-        "hamming pallas-vs-jnp",
-        hamming_score_pallas(m, u, 5, 8, interpret=interpret),
-        hamming_score(m, u, 5, 8), threshold=0.0))
-    return results
 
 
 def verify_model_quantization(cfg: QmannConfig, dims, batch,

@@ -19,7 +19,7 @@ from qmann_tpu.train.trainer import _batched_arrays
 from qmann_tpu.utils.analysis import SimilarityAnalyzer
 from qmann_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
 from qmann_tpu.utils.verification import (
-    compare, overflow_stats, verify_kernels, verify_model_quantization,
+    compare, overflow_stats, verify_model_quantization,
 )
 from qmann_tpu.data.babi import VectorizedSplit
 
@@ -35,11 +35,6 @@ def _case(rng, n=6, m=5, dim_input=18):
     mask = np.arange(m)[None, :] < n_sen[:, None]
     mem *= mask[:, :, None]
     return dims, mem, que, ans, mask
-
-
-def test_verify_kernels_pass():
-    results = verify_kernels()
-    assert all(r.ok for r in results), [str(r) for r in results]
 
 
 def test_verify_model_quantization_reports(rng):
@@ -153,27 +148,25 @@ def test_checkpoint_roundtrip(tmp_path, rng):
     assert os.path.exists(os.path.join(path, "dictionary.json"))
 
 
-def test_similarity_analysis_in_trainer(tmp_path):
+def test_similarity_analysis_in_trainer(tmp_path, qa1_dir):
     from qmann_tpu.data import load_task
     from qmann_tpu.train import train_task
     cfg = QmannConfig(num_itr=2, verbose=False, en_similarity_analysis=True,
                       similarity_analysis_dir=str(tmp_path))
-    data = load_task("qa1_single-supporting-fact",
-                     "/root/reference/MemN2N/dataset/en_10k_parsed",
+    data = load_task("qa1_single-supporting-fact", qa1_dir,
                      limit_train=100, limit_test=20)
     train_task(cfg, data)
     content = (tmp_path / "softmax_input_0to24.csv").read_text()
     assert len(content.splitlines()) > 0
 
 
-def test_similarity_probe_vs_full_dump(tmp_path):
+def test_similarity_probe_vs_full_dump(tmp_path, qa1_dir):
     """similarity_probe_size=0 dumps the FULL validation split per epoch
     (the reference's per-sample fidelity); a probe-N dump is exactly its
     first N samples' rows."""
     from qmann_tpu.data import load_task
     from qmann_tpu.train import train_task
-    data = load_task("qa1_single-supporting-fact",
-                     "/root/reference/MemN2N/dataset/en_10k_parsed",
+    data = load_task("qa1_single-supporting-fact", qa1_dir,
                      limit_train=100, limit_test=20)
     n_valid = len(data.valid)
     assert n_valid > 4

@@ -14,7 +14,7 @@ from qmann_tpu.train import (
     train_task, eval_split,
 )
 
-PARSED = "/root/reference/MemN2N/dataset/en_10k_parsed"
+from qmann_tpu.data.synth import TASK as QA1
 
 
 def tiny_cfg(**kw):
@@ -245,39 +245,36 @@ def test_zero_null_columns():
 
 
 @pytest.mark.slow
-def test_qa1_convergence_smoke_float():
+def test_qa1_convergence_smoke_float(qa1_dir):
     """End-to-end: the float model must essentially solve a qa1 subset in a
     few epochs (it reaches 100% train accuracy by ~epoch 9)."""
     cfg = QmannConfig(num_itr=10, verbose=False, attention_mode=1,
                       en_fixed_point=False)
-    data = load_task("qa1_single-supporting-fact", PARSED,
-                     limit_train=2000, limit_test=200)
+    data = load_task(QA1, qa1_dir, limit_train=2000, limit_test=200)
     res = train_task(cfg, data)
     assert res.history[-1].err_train < 0.1
     assert res.err_test < 0.5
 
 
 @pytest.mark.slow
-def test_qa1_convergence_smoke_hamming():
+def test_qa1_convergence_smoke_hamming(qa1_dir):
     """Hamming attention (mode 3) with its surrogate gradient must train:
     at iwl=1 (Q1.6, the sweep_fixed.sh regime where mode 3 is the paper's
     winner) train error must clearly improve within a few epochs."""
     cfg = QmannConfig(num_itr=6, verbose=False, attention_mode=3, iwl=1)
-    data = load_task("qa1_single-supporting-fact", PARSED,
-                     limit_train=2000, limit_test=200)
+    data = load_task(QA1, qa1_dir, limit_train=2000, limit_test=200)
     res = train_task(cfg, data)
     assert res.history[-1].err_train < 0.85
     assert res.history[-1].err_train < res.history[0].err_train
 
 
 @pytest.mark.slow
-def test_qa1_convergence_smoke_quantized():
+def test_qa1_convergence_smoke_quantized(qa1_dir):
     """Quantized Q5.2 (the run.sh default) learns more slowly — its
     quantization step is 0.25 — but must clearly beat chance (~5%) within
     a few epochs."""
     cfg = QmannConfig(num_itr=6, verbose=False)
-    data = load_task("qa1_single-supporting-fact", PARSED,
-                     limit_train=2000, limit_test=200)
+    data = load_task(QA1, qa1_dir, limit_train=2000, limit_test=200)
     res = train_task(cfg, data)
     assert res.history[-1].err_train < 0.85
     assert res.history[-1].err_train < res.history[0].err_train

@@ -10,7 +10,7 @@ from qmann_tpu.data import load_task
 from qmann_tpu.train import train_task
 from qmann_tpu.train.multi import train_tasks_multi
 
-PARSED = "/root/reference/MemN2N/dataset/en_10k_parsed"
+from qmann_tpu.data.synth import TASK as QA1, ensure_qa1
 
 
 def small_cfg(**kw):
@@ -19,12 +19,11 @@ def small_cfg(**kw):
     return QmannConfig(**base)
 
 
-def load_small(task="qa1_single-supporting-fact", limit=256):
-    return load_task(task, PARSED,
-                     raw_path="/root/reference/MemN2N/dataset/"
-                              "tasks_1-20_v1-2/en-10k",
-                     limit_train=limit, limit_test=64,
-                     pad_dict=64, pad_line=50)
+def load_small(seed=0, limit=256):
+    """Seeded qa1 (qmann_tpu.data.synth); two seeds stand in for two
+    tasks of one padded layout."""
+    return load_task(QA1, ensure_qa1(seed), limit_train=limit,
+                     limit_test=64, pad_dict=64, pad_line=50)
 
 
 @pytest.mark.slow
@@ -52,7 +51,7 @@ def test_family_matches_per_run_training():
     grid) x two seeds must each match their standalone run."""
     cfg = small_cfg(num_itr=2)
     d1 = load_small(limit=200)
-    d2 = load_small("qa2_two-supporting-facts", limit=150)
+    d2 = load_small(seed=1, limit=150)
     res = train_tasks_multi(cfg, {1: d1, 2: d2}, seeds=[0, 1],
                             eval_chunk=16)
     assert res.task_indices == [1, 1, 2, 2]

@@ -214,7 +214,7 @@ def test_hamming_weight_para_matches_oracle(rng, weight_para):
     u = np.asarray(float_quant(
         jnp.asarray(rng.normal(0, 2.0, (5,)).astype(np.float32)), act_fmt))
     got = np.asarray(hamming_score(jnp.asarray(m), jnp.asarray(u), iwl,
-                                   num_bit, -3, 3, "jnp", weight_para))
+                                   num_bit, -3, 3, weight_para))
     want = oracle_hamming_score(m, u, iwl, num_bit,
                                 weight_para=weight_para)
     np.testing.assert_array_equal(got, want)
@@ -234,7 +234,7 @@ def test_hamming_unweighted_matches_oracle(rng):
     u = np.asarray(float_quant(
         jnp.asarray(rng.normal(0, 2.0, (5,)).astype(np.float32)), act_fmt))
     got = np.asarray(hamming_score(jnp.asarray(m), jnp.asarray(u), iwl,
-                                   num_bit, -3, 3, "jnp", 0, False))
+                                   num_bit, -3, 3, 0, False))
     want = oracle_hamming_score(m, u, iwl, num_bit, weighted=False)
     np.testing.assert_array_equal(got, want)
 
@@ -414,7 +414,7 @@ def test_gray_hamming_score_capability(rng):
 
 @pytest.mark.parametrize("scale_w", [0.1, 1.0, 20.0])
 def test_qembed_integer_fast_path_is_exact(rng, scale_w):
-    """With integer BoW inputs the MXU fast path must agree bit-for-bit
+    """With integer BoW inputs the matmul fast path must agree bit-for-bit
     with the product-lattice path across non-saturating and saturating
     weight scales (the dynamic guard picks the correct branch)."""
     fmt = QFormat(5, 2)
@@ -469,7 +469,7 @@ def test_qembed_fast_path_low_bit_saturation(rng):
 
 
 def test_qembed_bf16_fast_path_boundary_magnitudes(rng):
-    """The single-pass bf16 MXU path must stay bit-exact at the 8-bit
+    """The single-pass bf16 matmul path must stay bit-exact at the 8-bit
     format's extremes: quantized weight magnitudes of 255 grid units
     (QFormat(8,0)) and counts at the saturation bound — every such integer
     is exactly representable in bf16's 8-bit significand."""
@@ -493,7 +493,7 @@ def test_qembed_bf16_fast_path_boundary_magnitudes(rng):
 
 @pytest.mark.parametrize("scale_w", [0.1, 1.0, 20.0])
 def test_qmatvec_integer_fast_path_is_exact(rng, scale_w):
-    """qmatvec's integer-input MXU fast path (mixed weight/input formats,
+    """qmatvec's integer-input matmul fast path (mixed weight/input formats,
     e.g. the emb_q query embedding on BoW counts) must agree bit-for-bit
     with the product lattice; the dynamic guard routes saturating scales
     to the slow branch."""

@@ -1,7 +1,8 @@
 """Serving-prepared inference (models.memn2n.prepare_inference /
 forward_prepared): the static-fast-path forward must be bit-identical to
-the runtime-checked training forward on real data, and must fall back
-(fast=False) whenever any exactness precondition cannot be proven."""
+the runtime-checked training forward on qa1-shaped data (the seeded
+generator, qmann_tpu.data.synth), and must fall back (fast=False)
+whenever any exactness precondition cannot be proven."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -11,12 +12,10 @@ from qmann_tpu.config import QmannConfig
 from qmann_tpu.data import load_task
 from qmann_tpu.models import memn2n
 
-PARSED = "/root/reference/MemN2N/dataset/en_10k_parsed"
-
 
 @pytest.fixture(scope="module")
-def qa1():
-    return load_task("qa1_single-supporting-fact", PARSED,
+def qa1(qa1_dir):
+    return load_task("qa1_single-supporting-fact", qa1_dir,
                      limit_train=64, limit_test=256)
 
 
@@ -34,7 +33,7 @@ def _bounds(dims):
 @pytest.mark.parametrize("mode,iwl,bw,expect_fast", [
     (2, 5, 8, True),    # flagship: quantized dot, Q5.2
     (3, 5, 8, True),    # hamming attention
-    (2, 5, 16, True),   # wide word: non-bf16 (f32 HIGHEST) MXU route
+    (2, 5, 16, True),   # wide word: non-bf16 (f32 HIGHEST) matmul route
     # low-bit formats: maxf < the count bound, so integer counts would
     # saturate under quantization — prepare must refuse the static route
     # (the runtime-checked path refuses it on the same data for the same
@@ -111,19 +110,3 @@ def test_prepared_saturating_weights_refuse_fast_path(qa1):
     np.testing.assert_array_equal(np.asarray(out.logits),
                                   np.asarray(ref.logits))
 
-
-def test_prepared_composes_with_pallas_hops(qa1):
-    """use_pallas keeps the cached-weight MXU embeddings AND routes the
-    hop chain through the fused Pallas read — still bit-identical."""
-    from jax.experimental.pallas import tpu as pltpu
-    cfg = QmannConfig(verbose=False, use_pallas=True)
-    params = memn2n.init_params(cfg, qa1.dims, jax.random.PRNGKey(6))
-    prep = memn2n.prepare_inference(params, cfg, **_bounds(qa1.dims))
-    assert prep.fast
-    mem, que, mask = _batch(qa1, 32)
-    ref = memn2n.forward(params, mem, que, mask,
-                         cfg.replace(use_pallas=False))
-    with pltpu.force_tpu_interpret_mode():
-        out = memn2n.forward_prepared(prep, mem, que, mask, cfg)
-    np.testing.assert_array_equal(np.asarray(out.logits),
-                                  np.asarray(ref.logits))

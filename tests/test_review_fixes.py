@@ -1,4 +1,6 @@
 """Regression tests for the code-review findings."""
+import os
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -9,11 +11,13 @@ from qmann_tpu.data.native import load_task_native, native_available
 from qmann_tpu.numerics import QFormat, ROUND_UP, encode_sign_magnitude
 from qmann_tpu.train.optim import lr_schedule
 
-PARSED = "/root/reference/MemN2N/dataset/en_10k_parsed"
-RAW = "/root/reference/MemN2N/dataset/tasks_1-20_v1-2/en-10k"
-import os
-needs_data = pytest.mark.skipif(not os.path.isdir(PARSED),
-                                reason="reference dataset not present")
+# the reference's bAbI release (MemN2N/dataset), where present
+DATASET = os.environ.get("QMANN_BABI_DATASET", "")
+PARSED = os.path.join(DATASET, "en_10k_parsed")
+RAW = os.path.join(DATASET, "tasks_1-20_v1-2", "en-10k")
+needs_data = pytest.mark.skipif(
+    not os.path.isdir(PARSED),
+    reason="bAbI release not present (QMANN_BABI_DATASET)")
 
 
 @needs_data
